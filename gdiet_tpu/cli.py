@@ -127,7 +127,7 @@ def _tokenize(argv: list[str]):
 
 
 HELP = """Usage: gdiet [options] <target.fa>|<target.gdi.npz> [query.fa/q [...]]
-A TPU-native sparsified ("Genome-on-Diet") read mapper. Options mirror the
+A GPU-accelerated sparsified ("Genome-on-Diet") read mapper. Options mirror the
 reference GDiet binaries; presets sr/short select the short-read pipeline,
 all others the long-read pipeline (override with --variant short|long).
 Key options:

@@ -12,11 +12,15 @@ import hashlib
 import os
 import pathlib
 import subprocess
-import tempfile
 
 import numpy as np
 
 _SRC = pathlib.Path(__file__).parent / "gdiet_native.c"
+# build outputs live in the checkout (.build/, git-ignored) unless
+# GDIET_NATIVE_CACHE names another directory
+_CACHE = pathlib.Path(os.environ.get(
+    "GDIET_NATIVE_CACHE",
+    pathlib.Path(__file__).resolve().parents[2] / ".build"))
 
 
 def _build() -> ctypes.CDLL | None:
@@ -25,11 +29,10 @@ def _build() -> ctypes.CDLL | None:
     except OSError:
         return None
     tag = hashlib.sha256(src).hexdigest()[:16]
-    cache = pathlib.Path(
-        os.environ.get("GDIET_NATIVE_CACHE", tempfile.gettempdir())
-    ) / f"gdiet_native_{tag}.so"
+    cache = _CACHE / f"gdiet_native_{tag}.so"
     if not cache.exists():
         try:
+            _CACHE.mkdir(parents=True, exist_ok=True)
             tmp = cache.with_suffix(f".{os.getpid()}.tmp")
             subprocess.run(
                 ["cc", "-O3", "-shared", "-fPIC", str(_SRC), "-o", str(tmp)],
@@ -153,11 +156,10 @@ def shmalloc_path() -> str | None:
     except OSError:
         return None
     tag = hashlib.sha256(src).hexdigest()[:16]
-    cache = pathlib.Path(
-        os.environ.get("GDIET_NATIVE_CACHE", tempfile.gettempdir())
-    ) / f"gdiet_shmalloc_{tag}.so"
+    cache = _CACHE / f"gdiet_shmalloc_{tag}.so"
     if not cache.exists():
         try:
+            _CACHE.mkdir(parents=True, exist_ok=True)
             tmp = cache.with_suffix(f".{os.getpid()}.tmp")
             subprocess.run(
                 ["cc", "-O2", "-shared", "-fPIC", str(_SHM_SRC),

@@ -15,8 +15,8 @@
  * by page offset (our user pointers sit at offset 64 into a page; glibc's
  * own mmap chunks sit at offset 16) plus the header magic.
  *
- * Opt-in only: LD_PRELOAD=.../shmalloc.so — used by the TPU work queue
- * for index-build-heavy steps.  Not fork-CoW-safe for the big blocks
+ * Opt-in only: LD_PRELOAD=.../shmalloc.so — for index-build-heavy
+ * steps.  Not fork-CoW-safe for the big blocks
  * (MAP_SHARED is shared with fork children); safe for fork+exec
  * (subprocess) which is all this project uses.
  */

@@ -1,1 +1,1 @@
-"""Device compute kernels (JAX/XLA + Pallas)."""
+"""Device compute kernels (JAX/XLA, and the CUDA DP kernel in cuda/)."""

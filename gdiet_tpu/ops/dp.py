@@ -16,6 +16,15 @@ tracking, ksw2_extd2_sse.c:367-383), CIGAR backtracked from the terminal
 corner with left-aligned gaps. Direction bytes are returned for the host
 backtrack (ksw_backtrack, ksw2.h:131-163), which is vectorized over the
 batch.
+
+Long-read windows (up to 32768 x 34048) cannot hold full-width direction
+bytes, so ``band_budget`` confines each wavefront's work and its dirs row to
+a sliding lane window (window_geometry / window_base) that provably covers
+every row's band; lanes outside it keep their values, exactly as in the
+full-width recurrence.
+
+``extd2`` is the single device entry point: the CUDA kernel (ops/dp_cuda.py)
+when lowered for the GPU, ``extd2_batch`` everywhere else.
 """
 
 from __future__ import annotations
@@ -31,7 +40,70 @@ NEG_INF = -0x40000000
 CIGAR_MATCH, CIGAR_INS, CIGAR_DEL = 0, 1, 2
 
 
-@partial(jax.jit, static_argnames=("Lmax", "Lt"))
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def window_geometry(band_budget: int, Lt: int) -> int | None:
+    """Banded lane-window width for a largest bandwidth ``band_budget``, or
+    None when it would not be narrower than the 128-aligned target budget.
+
+    Coverage: at wavefront r a row with band w <= band_budget touches lanes
+    from st_al - 1 >= ((r - w + 1) >> 1) - 16 up to at most
+    ((r + w) >> 1) + 15 (the 16-lane substitution refresh); window_base sits
+    at most 16 + 127 lanes below the first bound, so a width of
+    band_budget + 161 suffices (+176 keeps the historical slack)."""
+    WB = _round_up(band_budget + 176, 128)
+    return WB if WB < _round_up(Lt, 128) else None
+
+
+def window_base(r, band_budget: int, Lt: int, WB: int):
+    """First lane (a multiple of 128) of the window at wavefront r; the base
+    never decreases with r. Works on python ints and traced int32 alike."""
+    lo = ((r - band_budget + 1) >> 1) - 16
+    return jnp.clip(lo, 0, _round_up(Lt, 128) - WB) // 128 * 128
+
+
+def dp_scoring(params: tuple) -> tuple:
+    """(a, b, q, e, q2, e2, long_thres, long_diff) with the gap pairs ordered
+    so that q+e <= q2+e2 (ksw2_extd2_sse.c:78)."""
+    a, b, q, e, q2, e2 = (int(p) for p in params)
+    if q2 + e2 < q + e:
+        q, q2, e, e2 = q2, q, e2, e
+    long_thres = (q2 - q) // (e - e2) - 1 if e != e2 else 0
+    if q2 + e2 + long_thres * e2 > q + e + long_thres * e:
+        long_thres += 1
+    long_diff = long_thres * (e - e2) - (q2 - q) - e2
+    return a, b, q, e, q2, e2, long_thres, long_diff
+
+
+def extd2(query, target, qlens, tlens, band, params: tuple, Lmax: int,
+          Lt: int, band_budget: int | None = None):
+    """Device DP: (score [N] int32, dirs [N, R, Wd] uint8), the layout of
+    extd2_batch. Lowered for the GPU it runs the CUDA kernel
+    (ops/dp_cuda.py); on every other platform the XLA scan (extd2_xla)."""
+    from gdiet_tpu.ops import dp_cuda
+
+    kw = dict(params=tuple(params), Lmax=Lmax, Lt=Lt, band_budget=band_budget)
+    return jax.lax.platform_dependent(
+        query, target, qlens.astype(jnp.int32), tlens.astype(jnp.int32),
+        band.astype(jnp.int32), cuda=partial(dp_cuda.extd2_cuda, **kw),
+        default=partial(extd2_xla, **kw),
+    )
+
+
+def extd2_xla(query, target, qlens, tlens, band, *, params: tuple,
+              Lmax: int, Lt: int, band_budget: int | None = None):
+    """extd2 through the XLA scan on any platform (the reference the kernel
+    is measured against)."""
+    score, dirs, _, _ = extd2_batch(
+        query, target, qlens, band, np.array(params, np.int32), Lmax,
+        tlens=tlens, Lt=Lt, band_budget=band_budget,
+    )
+    return score, dirs
+
+
+@partial(jax.jit, static_argnames=("Lmax", "Lt", "band_budget"))
 def extd2_batch(
     query: jnp.ndarray,  # [N, Lmax] uint8 codes, zero-padded beyond qlen
     target: jnp.ndarray,  # [N, Lt|Lmax] uint8 codes, zero-padded beyond tlen
@@ -41,19 +113,27 @@ def extd2_batch(
     Lmax: int,
     tlens: jnp.ndarray | None = None,  # [N] int32 target lengths
     Lt: int | None = None,  # static target budget (defaults to Lmax)
+    band_budget: int | None = None,  # static bound on band: banded window
 ):
-    """Returns (score [N] int32, dirs [N, R, T] uint8, offs [N, R] int32,
-    off_ends [N, R] int32) with R = Lmax+Lt-1, T = Lt rounded up to 16.
+    """Returns (score [N] int32, dirs [N, R, Wd] uint8, offs [N, R] int32,
+    off_ends [N, R] int32) with R = Lmax+Lt-1, T = Lt rounded up to 16, and
+    Wd = T, or the window width when ``band_budget`` engages the banded
+    window; then dirs column c of wavefront r is lane
+    window_base(r, band_budget, Lt, Wd) + c.
 
     Candidates with lens[i] == 0 produce score NEG_INF.
     """
     N = query.shape[0]
     if Lt is None:
         Lt = Lmax
-    T = (Lt + 15) // 16 * 16
-    TQ = (Lmax + 15) // 16 * 16
+    T = _round_up(Lt, 16)
+    TQ = _round_up(Lmax, 16)
     R = Lmax + Lt - 1
+    WB = window_geometry(band_budget, Lt) if band_budget is not None else None
+    TS = _round_up(Lt, 128) if WB else T  # state width
+    Wd = WB or T
 
+    params = jnp.asarray(params, jnp.int32)
     a = params[0]
     b = params[1]
     q = params[2]
@@ -78,19 +158,19 @@ def extd2_batch(
     tlen = qlen if tlens is None else tlens.astype(jnp.int32)
     w = band.astype(jnp.int32)
 
-    lanes = jnp.arange(T, dtype=jnp.int32)[None, :]  # [1, T]
+    wlanes = jnp.arange(Wd, dtype=jnp.int32)[None, :]  # [1, Wd]
 
     qe_init = -(q + e)
     qe2_init = -(q2 + e2)
-    u0 = jnp.full((N, T), qe_init, jnp.int32)
-    v0 = jnp.full((N, T), qe_init, jnp.int32)
-    x0 = jnp.full((N, T), qe_init, jnp.int32)
-    y0 = jnp.full((N, T), qe_init, jnp.int32)
-    x20 = jnp.full((N, T), qe2_init, jnp.int32)
-    y20 = jnp.full((N, T), qe2_init, jnp.int32)
-    s0 = jnp.zeros((N, T), jnp.int32)
+    u0 = jnp.full((N, TS), qe_init, jnp.int32)
+    v0 = jnp.full((N, TS), qe_init, jnp.int32)
+    x0 = jnp.full((N, TS), qe_init, jnp.int32)
+    y0 = jnp.full((N, TS), qe_init, jnp.int32)
+    x20 = jnp.full((N, TS), qe2_init, jnp.int32)
+    y20 = jnp.full((N, TS), qe2_init, jnp.int32)
+    s0 = jnp.zeros((N, TS), jnp.int32)
 
-    sf = jnp.zeros((N, T), jnp.int32).at[:, : target.shape[1]].set(
+    sf = jnp.zeros((N, TS), jnp.int32).at[:, : target.shape[1]].set(
         target.astype(jnp.int32)
     )
     qpad = jnp.zeros((N, TQ), jnp.int32).at[:, :Lmax].set(query.astype(jnp.int32))
@@ -103,8 +183,11 @@ def extd2_batch(
             jnp.where(r < long_thres, -e, jnp.where(r == long_thres, long_diff, -e2)),
         )
 
+    def lane_at(arr, idx):  # arr[n, clip(idx[n])] over the full state width
+        return jnp.take_along_axis(arr, jnp.clip(idx, 0, T - 1)[:, None], 1)[:, 0]
+
     def step(carry, r):
-        u, v, x, y, x2, y2, s, H0, last_H0_t, last_st, last_en, score = carry
+        state, H0, last_H0_t, last_st, last_en, score = carry
         r32 = r.astype(jnp.int32)
         st0 = jnp.maximum(jnp.maximum(0, r32 - qlen + 1), (r32 - w + 1) >> 1)
         en0 = jnp.minimum(jnp.minimum(tlen - 1, r32), (r32 + w) >> 1)
@@ -114,17 +197,23 @@ def extd2_batch(
         en = jnp.minimum(en, T - 1)
 
         # boundary values (ksw2_extd2_sse.c:149-163)
-        stm1 = jnp.clip(st - 1, 0, T - 1)
+        u_f, v_f, x_f, y_f, x2_f, y2_f, s_f = state
         prev_ok = (st > 0) & (st - 1 >= last_st) & (st - 1 <= last_en)
-        x1 = jnp.where(
-            prev_ok, jnp.take_along_axis(x, stm1[:, None], 1)[:, 0], -(q + e)
-        )
-        x21 = jnp.where(
-            prev_ok, jnp.take_along_axis(x2, stm1[:, None], 1)[:, 0], -(q2 + e2)
-        )
+        x1 = jnp.where(prev_ok, lane_at(x_f, st - 1), -(q + e))
+        x21 = jnp.where(prev_ok, lane_at(x2_f, st - 1), -(q2 + e2))
         bu = boundary_u(r32)
-        v1 = jnp.where(st > 0, jnp.where(prev_ok,
-            jnp.take_along_axis(v, stm1[:, None], 1)[:, 0], -(q + e)), bu)
+        v1 = jnp.where(st > 0, jnp.where(prev_ok, lane_at(v_f, st - 1),
+                                         -(q + e)), bu)
+
+        # the lanes this wavefront touches: the whole state, or the window
+        if WB:
+            lo = window_base(r32, band_budget, Lt, WB)
+            win = lambda arr: jax.lax.dynamic_slice_in_dim(arr, lo, Wd, 1)
+        else:
+            lo = jnp.int32(0)
+            win = lambda arr: arr
+        lanes = lo + wlanes
+        u, v, x, y, x2, y2, s = (win(arr) for arr in state)
 
         # edge-lane init at t == r (ksw2_extd2_sse.c:160-163)
         at_edge = (lanes == r32) & (en[:, None] >= r32) & live[:, None]
@@ -136,13 +225,13 @@ def extd2_batch(
         span16 = (en0 - st0) // 16 * 16 + 16
         in_s = (lanes >= st0[:, None]) & (lanes < (st0 + span16)[:, None]) & live[:, None]
         # qrr[t] = qr[qlen-1-r+t] = query[r-t] when in range, 0 otherwise
-        qi = jnp.broadcast_to(r32 - lanes, (N, T))  # query index per lane
+        qi = jnp.broadcast_to(r32 - lanes, (N, Wd))  # query index per lane
         qv = jnp.where(
             (qi >= 0) & (qi < qlen[:, None]),
             jnp.take_along_axis(qpad, jnp.clip(qi, 0, TQ - 1), axis=1),
             0,
         )
-        sq = sf
+        sq = win(sf)
         nmask = (sq == 4) | (qv == 4)
         sval = jnp.where(sq == qv, sc_mch, sc_mis)
         sval = jnp.where(nmask, sc_N, sval)
@@ -195,13 +284,21 @@ def extd2_batch(
         x2 = jnp.where(in_al, x2_new, x2)
         y2 = jnp.where(in_al, y2_new, y2)
         d_out = jnp.where(in_al, d, jnp.uint8(0))
+        if WB:
+            state = tuple(
+                jax.lax.dynamic_update_slice_in_dim(full, part, lo, 1)
+                for full, part in zip(state, (u, v, x, y, x2, y2, s))
+            )
+        else:
+            state = (u, v, x, y, x2, y2, s)
+        u_f, v_f = state[0], state[1]
 
         # approximate H0 tracking (ksw2_extd2_sse.c:367-383)
         lt = last_H0_t
         lt_in = (lt >= st0) & (lt <= en0)
         lt1_in = (lt + 1 >= st0) & (lt + 1 <= en0)
-        v_lt = jnp.take_along_axis(v, jnp.clip(lt, 0, T - 1)[:, None], 1)[:, 0]
-        u_lt1 = jnp.take_along_axis(u, jnp.clip(lt + 1, 0, T - 1)[:, None], 1)[:, 0]
+        v_lt = lane_at(v_f, lt)
+        u_lt1 = lane_at(u_f, lt + 1)
         both = lt_in & lt1_in
         d0gt = v_lt > u_lt1
         H0_new = jnp.where(
@@ -211,7 +308,7 @@ def extd2_batch(
         )
         lt_new = jnp.where(both, jnp.where(d0gt, lt, lt + 1), jnp.where(lt_in, lt, lt + 1))
         first = r32 == 0
-        v_0 = v[:, 0]
+        v_0 = v_f[:, 0]
         H0 = jnp.where(live, jnp.where(first, v_0 - (q + e), H0_new), H0)
         last_H0_t = jnp.where(live, jnp.where(first, 0, lt_new), last_H0_t)
 
@@ -223,12 +320,12 @@ def extd2_batch(
         st_out = jnp.where(live, st, jnp.int32(T))
         en_out = jnp.where(live, en, jnp.int32(-1))
         return (
-            (u, v, x, y, x2, y2, s, H0, last_H0_t, last_st, last_en, score),
+            (state, H0, last_H0_t, last_st, last_en, score),
             (d_out, st_out, en_out),
         )
 
     init = (
-        u0, v0, x0, y0, x20, y20, s0,
+        (u0, v0, x0, y0, x20, y20, s0),
         jnp.zeros((N,), jnp.int32),
         jnp.zeros((N,), jnp.int32),
         jnp.full((N,), -1, jnp.int32),
@@ -239,7 +336,7 @@ def extd2_batch(
         step, init, jnp.arange(R, dtype=jnp.int32)
     )
     score = carry[-1]
-    # candidate-major layout (matches the Pallas kernel)
+    # candidate-major layout (what the device backtrack consumes)
     return score, dirs.transpose(1, 0, 2), offs.T, off_ends.T
 
 

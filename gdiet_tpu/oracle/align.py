@@ -12,7 +12,7 @@ KSW_EZ_APPROX_DROP), the reported score is the *approximate* greedy-path
 terminal H, and the CIGAR is backtracked from the terminal corner with
 left-aligned gaps. This oracle reproduces the difference recurrence
 mechanically (16-lane block alignment included) so scores and CIGARs are
-bit-identical to the C kernel; the TPU kernel is tested against it.
+bit-identical to the C kernel; the device DP is tested against it.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 The reference is a single pthread process; its only multi-shard construct is
 the multi-part index whose per-part hits are merged on disk
-(GDiet-ShortReads/splitidx.c, map.c:1094-1163). The TPU-native design
-replaces that with a 2-D device mesh (SURVEY.md §2.6/§5.8):
+(GDiet-ShortReads/splitidx.c, map.c:1094-1163). This design replaces that
+with a 2-D device mesh (SURVEY.md §2.6/§5.8):
 
   data axis — read batches are sharded across devices (the kt_for analog);
   ref axis  — the CSR minimizer index is split into contiguous key ranges,
@@ -13,7 +13,9 @@ replaces that with a 2-D device mesh (SURVEY.md §2.6/§5.8):
               re-sort before voting (the device analog of merge_hits).
 
 Everything runs inside one ``shard_map`` over the fused step
-(pipeline/device_step.py), so XLA schedules the collectives on ICI.
+(pipeline/device_step.py); XLA hands the psum/all_gather collectives to
+NCCL. The cards of one host are joined all to all by NVLink, so the mesh
+shape follows the workload alone.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import shard_map
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from gdiet_tpu.index.build import DietIndex, lookup_vals
 from gdiet_tpu.pipeline.device_step import StepConfig, _pattern_tables, fused_map_step
@@ -36,11 +38,12 @@ def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
     """Multi-host bring-up (SURVEY.md §5.8): initialize jax.distributed so
-    every pod host contributes its local chips to one global mesh. Safe to
-    call on a single host (no-op without a coordinator address); per-host
-    FASTQ sharding + an `(data, ref)` mesh over `jax.devices()` then give
+    every host contributes its local GPUs to one global mesh. Safe to call
+    on a single host (no-op without a coordinator address); per-host FASTQ
+    sharding + an `(data, ref)` mesh over `jax.devices()` then give
     data-parallel read batches and a key-range-sharded index across hosts,
-    with all collectives riding ICI/DCN via shard_map."""
+    with the shard_map collectives run by NCCL (NVLink within a host, the
+    network between hosts)."""
     if coordinator is None:
         return
     jax.distributed.initialize(
@@ -54,6 +57,18 @@ def make_mesh(n_data: int, n_ref: int, devices=None) -> Mesh:
     devices = np.asarray(devices if devices is not None else jax.devices())
     assert devices.size >= n_data * n_ref, "not enough devices for mesh"
     return Mesh(devices[: n_data * n_ref].reshape(n_data, n_ref), ("data", "ref"))
+
+
+def _place(mesh: Mesh, arrays: dict, sharded: tuple) -> dict:
+    """Put each array on the mesh once, at build time: the names in
+    ``sharded`` split their leading (n_ref) axis over "ref", the rest are
+    replicated. Unplaced arrays would sit on the first device and be
+    resharded on every call."""
+    return {k: jax.device_put(v, NamedSharding(
+        mesh, P("ref") if k in sharded else P())) for k, v in arrays.items()}
+
+
+_INDEX_KEYS = ("idx_keys", "idx_vals", "idx_positions", "idx_buckets")
 
 
 class ShardedIndex:
@@ -151,6 +166,7 @@ def sharded_step(
     has_nmask = nmask is not None
     if has_nmask:
         arrays["ref_nmask"] = nmask
+    arrays = _place(mesh, arrays, _INDEX_KEYS)
 
     def local(codes, lens, idx_keys, idx_vals, idx_positions, idx_buckets,
               ref_codes, ref_offsets, ref_lengths, maps_, pref_, *nm):
@@ -177,17 +193,13 @@ def sharded_step(
         check_vma=False,
     )
 
-    @jax.jit
-    def step(codes, lens):
-        return shard_fn(
-            codes, lens,
-            arrays["idx_keys"], arrays["idx_vals"], arrays["idx_positions"],
-            arrays["idx_buckets"],
-            arrays["ref_codes"], arrays["ref_offsets"], arrays["ref_lengths"],
-            arrays["maps"], arrays["pref"],
-            *([arrays["ref_nmask"]] if has_nmask else []),
-        )
+    names = list(arrays)
+    jitted = jax.jit(shard_fn)
 
+    def step(codes, lens):
+        return jitted(codes, lens, *(arrays[k] for k in names))
+
+    step.arrays = arrays  # the placed index, for placement checks
     return step
 
 
@@ -225,6 +237,7 @@ def sharded_lr_front(
         maps=jnp.asarray(maps),
         pref=jnp.asarray(pref),
     )
+    arrays = _place(mesh, arrays, _INDEX_KEYS)
 
     def local(codes, lens, cov_thr, vt_dis, idx_keys, idx_vals,
               idx_positions, idx_buckets, maps_, pref_):
@@ -248,14 +261,15 @@ def sharded_lr_front(
         check_vma=False,
     )
 
-    @jax.jit
-    def front(codes, lens, cov_thr, vt_dis):
-        return shard_fn(
-            codes, lens, cov_thr, vt_dis,
-            arrays["idx_keys"], arrays["idx_vals"], arrays["idx_positions"],
-            arrays["idx_buckets"], arrays["maps"], arrays["pref"],
-        )
+    names = ("idx_keys", "idx_vals", "idx_positions", "idx_buckets", "maps",
+             "pref")
+    jitted = jax.jit(shard_fn)
 
+    def front(codes, lens, cov_thr, vt_dis):
+        return jitted(codes, lens, cov_thr, vt_dis,
+                      *(arrays[k] for k in names))
+
+    front.arrays = arrays  # the placed index, for placement checks
     return front
 
 
@@ -274,8 +288,6 @@ def build_sharded_mapper(index: DietIndex, mo, mesh: Mesh,
         index, mo, mid_occ, Lmax, min(S, dmax), min(S2, dmax), A
     )
     cfg = dc_replace(cfg, dp_frac=dp_frac)
-    if jax.default_backend() == "tpu":
-        cfg = dc_replace(cfg, dp_impl="pallas")
     maps, pref, _ = _pattern_tables(cfg)
     return cfg, sharded_step(mesh, index, cfg, maps, pref, backtrack)
 

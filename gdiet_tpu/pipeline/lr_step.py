@@ -340,8 +340,8 @@ def lr_front(
     vt2p = vote2_packed_pair(
         keys, qv, okv, strand_stream, extracted, vt_dis, lo1, hi1, lo2, hi2
     )
-    # single packed [B, 4 + 8K + 4 + 16] i32 tensor for the host (the TPU
-    # link has high per-transfer latency)
+    # single packed [B, 4 + 8K + 4 + 16] i32 tensor for the host: one
+    # device-to-host transfer per batch
     i32 = jnp.int32
     cols = [
         fallback.astype(i32)[:, None],

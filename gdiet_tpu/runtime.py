@@ -445,7 +445,7 @@ def run_mapping(
     t0 = time.perf_counter()
 
     # multi-host bring-up (SURVEY.md §5.8): join the pod when the driver
-    # exports coordinator env vars (jax.distributed; ICI/DCN collectives)
+    # exports coordinator env vars (jax.distributed; NCCL collectives)
     import os as _os
 
     if _os.environ.get("GDIET_COORDINATOR"):

@@ -1,4 +1,7 @@
-"""Device long-read pipeline vs the reference binary's golden SAM."""
+"""Device long-read pipeline vs the reference binary's golden SAM.
+
+Every non-exact segment takes the device DP (ops/dp.py::extd2: the XLA scan
+here, the CUDA kernel on a GPU); none is beyond the largest bucket."""
 
 import numpy as np
 import pytest
@@ -11,10 +14,9 @@ from gdiet_tpu.pipeline.longread import LongReadMapper
 from tests.test_longread_oracle import CONFIGS
 
 
-pytestmark = pytest.mark.slow
-
-
-@pytest.mark.parametrize("tag,n_threads", [("hifi", 1), ("ont", 1), ("hifi", 3)])
+@pytest.mark.parametrize("tag,n_threads", [
+    ("hifi", 1), ("ont", 1), pytest.param("hifi", 3, marks=pytest.mark.slow),
+])
 def test_lr_device_parity(data_dir, tag, n_threads):
     cfg = dict(CONFIGS[tag])
     preset = cfg.pop("preset")
@@ -51,3 +53,5 @@ def test_lr_device_parity(data_dir, tag, n_threads):
     assert len(produced) == len(golden)
     for i, (mine, gold) in enumerate(zip(produced, golden)):
         assert mine == gold, f"record {i}"
+    assert mapper.stats["host_dp_segments"] == 0
+    assert mapper._bucket_fns  # the segment DP ran through extd2

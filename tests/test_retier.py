@@ -1,4 +1,4 @@
-"""Adaptive Lmax re-tiering in the SR CLI fast path (VERDICT r3 #8).
+"""Adaptive Lmax re-tiering in the SR CLI fast path.
 
 The fast path derives its compiled read-length envelope from the FIRST
 batch; a FASTQ whose long reads appear late used to route every one of
